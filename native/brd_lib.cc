@@ -1,4 +1,4 @@
-// brd_lib: native codebook-image library for the 2ACE-TPU stack.
+// brd_lib: native codebook-image library for the 2ACE stack.
 //
 // Fills the role of the closed-source `wil6210_brd_mod` binary the reference
 // shells out to for every codebook edit (ref: main/codebook_library.py:21-48,

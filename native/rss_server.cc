@@ -1,4 +1,4 @@
-// rss_server: native measurement server for the 2ACE-TPU testbed stack.
+// rss_server: native measurement server for the 2ACE testbed stack.
 //
 // Replaces the closed-source `wil6210_server-2.2.0` RSS-dump firmware server
 // the reference launches over SSH (ref: firmware/load_csi_firmware.sh:12) and

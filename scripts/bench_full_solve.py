@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Full-solve benchmark: complete 2ACE A2 recoveries on one TPU chip.
+"""Full-solve benchmark: complete 2ACE A2 recoveries on one GPU.
 
 Times `solve_lowrank_multi_pair_batch` — the ENTIRE inferLowRankV4_multi
 scaffold (spectral init, 3 restarts with train/test quality gates, rank-1
@@ -10,6 +10,8 @@ iteration budget (maxiter 500).
 
 Reference point: MATLAB solves ONE such recovery in < ~1 s on a laptop CPU
 (reference README.md:87).
+
+Shape knobs: NT, NR, M, BATCH, MAXITER, WARM, S1CAP, S2CAP (environment).
 """
 
 import os
@@ -22,10 +24,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-_CACHE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _CACHE)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+import twoace  # noqa: F401,E402  (places the persistent compile cache)
 
 NT = int(os.environ.get("NT", 16))
 NR = int(os.environ.get("NR", NT))
@@ -39,10 +38,13 @@ S2CAP = int(os.environ.get("S2CAP", 0))    # 0 = uncapped
 
 
 def main():
-    from twoace_tpu.config import AdmmConfig
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.ops.pair_solver import solve_lowrank_multi_pair_batch
+    from twoace.config import AdmmConfig
+    from twoace.ops.cplx import Pair
+    from twoace.ops.pair_solver import solve_lowrank_multi_pair_batch
+    from twoace.utils.device import describe_devices, require_gpu
 
+    require_gpu()
+    print(describe_devices())
     rng = np.random.default_rng(0)
     bits = rng.integers(0, 4, (M, N))
     a = np.exp(1j * bits * (np.pi / 2)) / np.sqrt(N)
@@ -69,15 +71,16 @@ def main():
     key = jax.random.PRNGKey(0)
 
     t0 = time.perf_counter()
-    res = solve_lowrank_multi_pair_batch(key, ap, b, NT, NR, cfg)
+    res = jax.block_until_ready(
+        solve_lowrank_multi_pair_batch(key, ap, b, NT, NR, cfg))
     q0 = float(jnp.min(res.quality))
     t_compile_and_run = time.perf_counter() - t0
 
     reps = 3
     t0 = time.perf_counter()
     for _ in range(reps):
-        res = solve_lowrank_multi_pair_batch(key, ap, b, NT, NR, cfg)
-        float(jnp.min(res.quality))
+        res = jax.block_until_ready(
+            solve_lowrank_multi_pair_batch(key, ap, b, NT, NR, cfg))
     dt = (time.perf_counter() - t0) / reps
 
     x_est = np.asarray(res.x.re) + 1j * np.asarray(res.x.im)

@@ -7,11 +7,10 @@ iteration count of each staged solve is ``n_lanes * max(trips)`` while the
 USEFUL count is ``sum(trips)``.  This script runs ``_batch_first_pass``
 (the 6-of-8 solves of the production scaffold) on the bench workload and
 reports the per-solve trip-count distribution and the implied waste —
-the measurement VERDICT r03 asked for before attacking the ~30-40%
-batch-throughput gap.
+the count that decides whether the pass caps pay (ROADMAP A7).
 
-Writes BENCH_lockstep_r04.json.  Run on the TPU chip:
-    python scripts/bench_lockstep.py [batch]
+Prints one JSON line.  Run on a GPU:
+    python scripts/bench_lockstep.py [batch] [cap1] [cap2] [warm]
 """
 
 import json
@@ -25,16 +24,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-_CACHE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _CACHE)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+import twoace  # noqa: F401,E402  (places the persistent compile cache)
 
 
 def main():
-    from twoace_tpu.config import AdmmConfig
-    from twoace_tpu.ops import pair_solver as ps
-    from twoace_tpu.ops.prox import profile_ladder_arrays
+    from twoace.config import AdmmConfig
+    from twoace.ops import pair_solver as ps
+    from twoace.ops.prox import profile_ladder_arrays
+    from twoace.utils.device import describe_devices, require_gpu
+
+    require_gpu()
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -97,7 +96,7 @@ def main():
                      "stage2_maxiter": cfg.stage2_maxiter,
                      "warm_iters": cfg.warm_iters,
                      "matmul_precision": cfg.matmul_precision},
-        "backend": jax.default_backend(),
+        **describe_devices(),
         "solve1_scale_by_row": acct(it[..., 0]),
         "solve2_per_column": acct(it[..., 1]),
         "combined_first_pass": {
@@ -114,13 +113,6 @@ def main():
                 "while_loop.  waste is the fraction of executed iterations "
                 "spent on already-converged lanes.",
     }
-    name = ("BENCH_lockstep_r05b.json" if cap2
-            else "BENCH_lockstep_r05.json" if cap
-            else "BENCH_lockstep_r04.json")
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), name)
-    with open(path, "w") as f:
-        json.dump(out, f, indent=2)
     print(json.dumps(out))
 
 

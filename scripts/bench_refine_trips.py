@@ -1,15 +1,15 @@
 #!/usr/bin/env python
 """Trip-count distribution of the full-data refinement stage (stage 3).
 
-BENCH_lockstep_r05b closed the first-pass lockstep waste (36.1% -> 2.6%
-via the pass-1/pass-2 caps); the remaining vmapped while_loop on the
-batch path is `_batch_refine` — one full-data solve per instance from the
-selected restart's (already converged) iterate.  This script reproduces
+Besides the two first-pass solves (see bench_lockstep.py), the remaining
+vmapped while_loop on the batch path is `_batch_refine` — one full-data
+solve per instance from the selected restart's (already converged)
+iterate.  This script reproduces
 the staged pipeline up to stage 3 with zeroed iteration carry, so
 ``res.iters`` IS the per-instance refine trip count, and reports the
 distribution + implied lockstep waste of the refine stage alone.
 
-Writes BENCH_refine_r05.json.  Run on the TPU chip:
+Prints one JSON line.  Run on a GPU:
     python scripts/bench_refine_trips.py [batch] [warm]
 """
 
@@ -24,16 +24,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-_CACHE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _CACHE)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+import twoace  # noqa: F401,E402  (places the persistent compile cache)
 
 
 def main():
-    from twoace_tpu.config import AdmmConfig
-    from twoace_tpu.ops import pair_solver as ps
-    from twoace_tpu.ops.prox import profile_ladder_arrays
+    from twoace.config import AdmmConfig
+    from twoace.ops import pair_solver as ps
+    from twoace.ops.prox import profile_ladder_arrays
+    from twoace.utils.device import describe_devices, require_gpu
+
+    require_gpu()
 
     import bench
 
@@ -88,7 +88,7 @@ def main():
                      "stage2_maxiter": cfg.stage2_maxiter,
                      "warm_iters": warm,
                      "matmul_precision": cfg.matmul_precision},
-        "backend": jax.default_backend(),
+        **describe_devices(),
         "refine_trips": {
             "mean": round(float(t.mean()), 1),
             "p50": round(float(np.median(t)), 1),
@@ -100,10 +100,6 @@ def main():
                 "phase excluded by design so trips are f32-tail only); "
                 "lockstep executed = batch * max(trips).",
     }
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "BENCH_refine_r05.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=2)
     print(json.dumps(out))
 
 

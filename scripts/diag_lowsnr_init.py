@@ -20,14 +20,14 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-import twoace_tpu as t2
-from twoace_tpu.config import AdmmConfig, MethodFlags
-from twoace_tpu.models import (generate_channel, generate_measurement,
+import twoace as t2
+from twoace.config import AdmmConfig, MethodFlags
+from twoace.models import (generate_channel, generate_measurement,
                                sparse_formulation)
-from twoace_tpu.ops.admm import solve_lowrank_multi
-from twoace_tpu.ops.dispatch import recover_sparse
-from twoace_tpu.sensing import generate_sensing_matrix
-from twoace_tpu.utils.metrics import nmse_h_projection
+from twoace.ops.admm import solve_lowrank_multi
+from twoace.ops.dispatch import recover_sparse
+from twoace.sensing import generate_sensing_matrix
+from twoace.utils.metrics import nmse_h_projection
 
 NT = int(sys.argv[1]) if len(sys.argv) > 1 else 8
 M = int(sys.argv[2]) if len(sys.argv) > 2 else 150

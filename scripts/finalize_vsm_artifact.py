@@ -3,7 +3,7 @@
 
 Reads the raw sweep output (VSM_<tag>.npz, produced by the CLI:
 
-  python -m twoace_tpu vs-m --nt 16 --nr 16 --trials 10 --maxiter 500 \
+  python -m twoace vs-m --nt 16 --nr 16 --trials 10 --maxiter 500 \
       --restarts 3 --paths 3 --beam Random_Phase_State --search-range 95 \
       --snr 20 --m-grid 4 36 121 225 361 529 784 1024 \
       --methods admm_lowrank_v4 phaselift plomp plgamp --seed 1 \
@@ -74,7 +74,7 @@ def main() -> None:
         json.dump(out, f, indent=2)
 
     sys.path.insert(0, ROOT)
-    from twoace_tpu.utils.plotting import plot_error_vs_grid
+    from twoace.utils.plotting import plot_error_vs_grid
 
     plot_error_vs_grid(
         np.asarray(m_grid), curves,

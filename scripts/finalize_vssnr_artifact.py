@@ -3,7 +3,7 @@
 
 Reads VSSNR_<tag>.npz (produced by the CLI:
 
-  python -m twoace_tpu vs-snr --nt 16 --nr 16 --trials 10 --maxiter 500 \
+  python -m twoace vs-snr --nt 16 --nr 16 --trials 10 --maxiter 500 \
       --restarts 3 --paths 3 --beam Random_Phase_State --search-range 95 \
       --snr-grid 0 5 10 15 20 25 --m 529 \
       --methods admm_lowrank_v4 plomp plgamp --seed 1 --platform cpu \
@@ -69,7 +69,7 @@ def main() -> None:
         json.dump(out, f, indent=1)
 
     sys.path.insert(0, ROOT)
-    from twoace_tpu.utils.plotting import plot_error_vs_grid
+    from twoace.utils.plotting import plot_error_vs_grid
 
     plot_error_vs_grid(np.asarray(grid), curves,
                        xlabel="SNR (dB), 16x16, m=529",

@@ -59,8 +59,8 @@ def load_cbs():
 
 
 def gen_channels(key, trials):
-    from twoace_tpu.config import ArrayConfig, ChannelConfig
-    from twoace_tpu.models.channel import generate_channel
+    from twoace.config import ArrayConfig, ChannelConfig
+    from twoace.models.channel import generate_channel
 
     cfg = ArrayConfig(nt=NT, nr=NR)
     ch = generate_channel(key, cfg, ChannelConfig(n_paths=3, rician_k=0),
@@ -69,10 +69,10 @@ def gen_channels(key, trials):
 
 
 def main():
-    from twoace_tpu.config import AdmmConfig, ArrayConfig
-    from twoace_tpu.pipeline.recovery import CampaignConfig, _pick_m_indices
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.ops.pair_solver import solve_lowrank_multi_pair
+    from twoace.config import AdmmConfig, ArrayConfig
+    from twoace.pipeline.recovery import CampaignConfig, _pick_m_indices
+    from twoace.ops.cplx import Pair
+    from twoace.ops.pair_solver import solve_lowrank_multi_pair
 
     trials = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     cb_mr, cb_rd = load_cbs()

@@ -26,10 +26,10 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def main():
-    import twoace_tpu as t2
-    from twoace_tpu.pipeline import SimulationConfig
-    from twoace_tpu.pipeline.simulation import measurements_needed_vs_range
-    from twoace_tpu.utils.plotting import plot_measurements_vs_range
+    import twoace as t2
+    from twoace.pipeline import SimulationConfig
+    from twoace.pipeline.simulation import measurements_needed_vs_range
+    from twoace.utils.plotting import plot_measurements_vs_range
 
     trials = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     ranges = [20.0, 30.0, 40.0, 50.0, 60.0, 70.0, 80.0]

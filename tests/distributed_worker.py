@@ -2,16 +2,16 @@
 
 Launched by tests/test_distributed.py as N separate OS processes, each
 with its own virtual CPU device count, joined through
-``twoace_tpu.parallel.distributed.initialize_multihost``.  This validates
+``twoace.parallel.distributed.initialize_multihost``.  This validates
 the actual multi-host code path (coordinator handshake, global mesh over
-non-addressable devices, cross-process collectives) that a TPU pod slice
-would use — the reference's analog is the parfor pool of
+non-addressable devices, cross-process collectives) that a multi-host
+deployment would use — the reference's analog is the parfor pool of
 ``Vs_M_par.m:145``, which has no cross-worker communication at all.
 
 Each process:
   1. joins the cluster (jax.distributed.initialize via initialize_multihost)
   2. asserts the global device count is num_processes * local_devices
-  3. builds the global (batch x rows) mesh from twoace_tpu.parallel.mesh
+  3. builds the global (batch x rows) mesh from twoace.parallel.mesh
   4. assembles a globally-sharded batch of tiny phase-retrieval problems
      with jax.make_array_from_process_local_data (each process contributes
      its local batch shard)
@@ -46,10 +46,10 @@ def main() -> None:
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from twoace_tpu.config import AdmmConfig
-    from twoace_tpu.parallel.distributed import initialize_multihost
-    from twoace_tpu.parallel.mesh import make_mesh, problem_sharding
-    from twoace_tpu.parallel.sharded_admm import solve_lowrank_sharded
+    from twoace.config import AdmmConfig
+    from twoace.parallel.distributed import initialize_multihost
+    from twoace.parallel.mesh import make_mesh, problem_sharding
+    from twoace.parallel.sharded_admm import solve_lowrank_sharded
 
     initialize_multihost(coordinator=f"127.0.0.1:{port}",
                          num_processes=num_processes,

@@ -2,7 +2,7 @@
 
 Written from the algorithm specification (SURVEY §2.1 S2-S5 /
 ref: main/src/my_recovery_algorithms/ADMM_v2/inferLowRankV4_multi.m) as an
-independent oracle for parity testing the JAX/TPU implementation — converged
+independent oracle for parity testing the JAX implementation — converged
 NMSE of the two stacks must agree (SURVEY §4: "golden-value parity tests
 against ... the MATLAB algorithm re-implemented in float64 NumPy").
 

@@ -5,16 +5,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from twoace_tpu.config import ArrayConfig, ChannelConfig
-from twoace_tpu.models import generate_channel
-from twoace_tpu.ops.beamsweep import sweep_channel
-from twoace_tpu.sensing.grouping import (
+from twoace.config import ArrayConfig, ChannelConfig
+from twoace.models import generate_channel
+from twoace.ops.beamsweep import sweep_channel
+from twoace.sensing.grouping import (
     antenna_phase_shifts,
     group_antennas,
     ideal_steering_ura,
     ura_coordinates,
 )
-from twoace_tpu.utils.spectral_analysis import (
+from twoace.utils.spectral_analysis import (
     captured_energy,
     eig_decay,
     ladder_deviation,
@@ -95,7 +95,7 @@ def test_antenna_phase_shift_recovery():
 def test_subset_sweep_rss_monotone(key):
     """Larger sweep subsets find better beams on average
     (ref show_beamforming_data.m:42-49)."""
-    from twoace_tpu.ops.beamsweep import aggregate_beamforming, subset_sweep_rss
+    from twoace.ops.beamsweep import aggregate_beamforming, subset_sweep_rss
 
     rng = np.random.default_rng(0)
     grid = jnp.asarray(rng.normal(size=(16, 16)) * 3 - 60)

@@ -4,7 +4,7 @@
 ``scripts/finalize_vsm_artifact.py``) is the repo's machine-checkable
 version of the reference's headline claim — 2ACE reduces CSI estimation
 error by 2-8 dB vs the compressive phase-retrieval baselines
-(/root/reference/README.md:7).  These tests pin the committed curve so a
+(the reference's README.md:7).  These tests pin the committed curve so a
 solver regression that erodes the accuracy advantage fails CI rather than
 silently shipping.
 """
@@ -128,47 +128,6 @@ def _load(name):
         return json.load(f)
 
 
-def test_bench_sweep_artifact_bounds():
-    """BENCH_sweep_r03.json: the committed throughput/accuracy points stay
-    in the claimed regime (production float32 precision: convergence
-    fires, -113 dB median, recoveries/s grows with batch)."""
-    d = _load("BENCH_sweep_r03.json")
-    assert d.get("matmul_precision") == "float32"
-    pts = {p["solve_batch"]: p for p in d["points"]}
-    assert pts[64]["recoveries_per_s"] > 50
-    assert pts[256]["recoveries_per_s"] >= pts[16]["recoveries_per_s"]
-    # converged solves: far below the maxiter-exhausted 3500/instance
-    assert pts[64]["selected_iters"] / 64 < 2000
-
-
-def test_mobility_artifact_bounds():
-    """MOBILITY_r03.json: one-compile tracking throughput claim."""
-    d = _load("MOBILITY_r03.json")
-    assert d["windows_per_s"] > 5
-    assert d["window_latency_ms"] < 200
-
-
-def test_compile_artifact_bounds():
-    """COMPILE_r04.json: the staged batch solver's eager cold compile
-    (first_pass + refine; retry is lazy) stays under the 120 s target."""
-    d = _load("COMPILE_r04.json")
-    s = d["stages"]
-    eager = s["first_pass"]["compile_s"] + s["refine"]["compile_s"]
-    assert eager < 120, eager
-
-
-def test_breakdown_artifact_crossover_relations():
-    """BENCH_breakdown_r03.json: the measured relations that justify the
-    batch solver's XLA routing (README 'Pallas — where they win')."""
-    d = _load("BENCH_breakdown_r03.json")
-    v = {k: p["iters_per_s"] for k, p in d["variants"].items()}
-    # XLA's batched form beats both Pallas forms at batch 256...
-    assert v["full_xla"] > v["batchz_pallas"] > v["full_pallas"]
-    # ...and removing the Z-prox entirely bounds the achievable win
-    assert v["no_zprox"] > v["full_xla"]
-    assert v["no_zprox"] / v["full_xla"] < 1.5
-
-
 def test_multires_artifact_relationship():
     """VSM_multires_r04.json (VERDICT r03 #2 — the paper's namesake
     capability, finally measured): A2 through tier-aware multires sampling
@@ -193,133 +152,6 @@ def test_multires_artifact_relationship():
     assert (mr[m <= 96] > -3.0).all(), mr.tolist()
 
 
-def test_bench_sweep_r04_warm_phase_bounds():
-    """BENCH_sweep_r04.json: the mixed-precision warm phase
-    (AdmmConfig.warm_iters=80) must keep its measured win over pure f32
-    at every batch size without giving up convergence-class accuracy
-    (measured r04: 59.7/84.3/94.7 vs 43.8/69.5/86.9 rec/s at -95 dB vs
-    -113 dB median)."""
-    d = _load("BENCH_sweep_r04.json")
-    pts = {(p["solve_batch"], p["warm_iters"]): p for p in d["points"]}
-    for batch in (16, 64, 256):
-        warm = pts[(batch, 80)]
-        cold = pts[(batch, 0)]
-        assert warm["recoveries_per_s"] > cold["recoveries_per_s"], batch
-        # deep convergence in both modes (far beyond the ~-20 dB any
-        # downstream metric needs)
-        assert warm["median_nmse_db"] <= -80.0, warm
-        assert cold["median_nmse_db"] <= -100.0, cold
-        # ACCURACY CONTRACT (config.AdmmConfig.warm_iters): the warm
-        # floor must sit with >= 20 dB margin below the -60 dB band where
-        # reference parity is judged (test_parity.py's +-0.5 dB checks);
-        # every downstream consumer (campaign artifacts ~-30 dB, quality
-        # gates ~0.1-0.4 magnitude residuals) operates far above it.
-        assert warm["median_nmse_db"] <= -60.0 - 20.0, warm
-    assert pts[(256, 80)]["recoveries_per_s"] > 90.0
-
-
-def test_scaling_r05_efficiency_table():
-    """SCALING_r05.json (VERDICT r04 #5): replaces the superlinear-on-2-
-    shared-cores number with (a) roofline-normalized host tables, (b)
-    compiled-HLO collective accounting mapped to v5e ICI, and (c) the
-    production 32x32 sharded point the r04 round could not run.
-
-    The >= 0.8 BASELINE target holds where the design puts it: batch-axis
-    sharding moves ZERO cross-chip bytes (single-participant groups), and
-    32x32 row-sharding clears 0.8 at 2 and 4 rows; 16x16 row-sharding is
-    all-reduce-latency-bound (predicted < 0.5 at 2 rows) — measured
-    boundary, not a regression."""
-    d = _load("SCALING_r05.json")
-    c = d["collective_accounting"]
-    assert c["32x32"]["predicted_ici_efficiency"]["rows2"] >= 0.8
-    assert c["32x32"]["predicted_ici_efficiency"]["rows4"] >= 0.8
-    assert c["16x16"]["predicted_ici_efficiency"]["rows2"] < 0.8
-    assert c["16x16_batch_axis"]["other_collective_count"] == 0
-    # accounting grounded in the compiled graph, not hand-derived
-    assert c["32x32"]["compiled_flops"] > 1e10
-    assert c["32x32"]["all_reduce_bytes_total"] > 0
-    p32 = d["production_32"]
-    assert p32["quality"] > 0.9 and p32["nmse_db"] < -40.0
-    assert p32["compile_s"] < 600.0           # affordable on the mesh now
-    strong = {r["devices"]: r for r in d["production_16"]["strong"]}
-    assert set(strong) == {1, 2, 4, 8}
-    for r in strong.values():
-        assert r["min_quality"] > 0.9
-
-
-def test_bench_sweep_r05_stage1_cap_harvest():
-    """BENCH_sweep_r05.json (VERDICT r04 #7): the pass-1 cap harvest.
-    At batch >= 64 the (warm 80, cap 120) config clears the no-cap warm
-    schedule by >= 8% (measured: 110.9 vs 75.1 at 64; 112.4 vs 100.8 at
-    256) at the same accuracy class; at batch 16 the cap HURTS (55.1 vs
-    59.9) — the trade is batch-size dependent and the artifact records
-    both sides.  BENCH_lockstep_r05.json holds the updated waste
-    accounting: the cap zeroes pass-1 lockstep waste outright
-    (all lanes exactly 120) but hands pass 2 a straggler (max 307 vs p50
-    152) — the residual compaction headroom, documented not hidden."""
-    d = _load("BENCH_sweep_r05.json")
-    pts = {(p["solve_batch"], p["warm_iters"], p["stage1_maxiter"]): p
-           for p in d["points"]}
-    for batch in (64, 256):
-        cap = pts[(batch, 80, 120)]
-        nocap = pts[(batch, 80, None)]
-        assert cap["recoveries_per_s"] >= 1.08 * nocap["recoveries_per_s"]
-        assert cap["median_nmse_db"] <= -80.0     # warm-schedule contract
-    assert pts[(256, 80, 120)]["recoveries_per_s"] > 105.0
-    lk = _load("BENCH_lockstep_r05.json")
-    assert lk["workload"]["stage1_maxiter"] == 120
-    assert lk["solve1_scale_by_row"]["lockstep_waste"] == 0.0
-    assert lk["solve2_per_column"]["max"] > lk["solve2_per_column"]["p90"]
-
-
-def test_bench_stage2_cap_harvest():
-    """BENCH_stage2cap_r05.json: the pass-2 straggler harvest that
-    BENCH_lockstep_r05 documented (solve2 max 307 vs mean 152.8 trips =
-    50.2% lockstep waste under the instance vmap).  Capping pass 2 at 160
-    (~p90) on top of the pass-1 cap is >= 10% batch-256 throughput at
-    IDENTICAL accuracy: same median/p90 NMSE to 0.1 dB, min quality 1.0,
-    selected iterations within 0.1% (the cut tail was pure lockstep
-    overhang, not useful work).  Caps 200/250 do not bind under warm-80
-    (selected iters unchanged) — the straggler lives in the 160-200
-    band.  BENCH_lockstep_r05b.json re-runs the accounting at the
-    harvested config and must show the combined first-pass waste well
-    under the pre-cap 36.1%."""
-    d = _load("BENCH_stage2cap_r05.json")
-    pts = {p["stage2_maxiter"]: p for p in d["points"]}
-    cap, nocap = pts[160], pts[None]
-    assert cap["recoveries_per_s"] >= 1.10 * nocap["recoveries_per_s"]
-    assert cap["recoveries_per_s"] > 115.0          # the r04 #7 target
-    assert abs(cap["median_nmse_db"] - nocap["median_nmse_db"]) <= 0.2
-    assert abs(cap["p90_nmse_db"] - nocap["p90_nmse_db"]) <= 0.2
-    assert cap["min_quality"] == 1.0
-    assert (abs(cap["selected_iters"] - nocap["selected_iters"])
-            <= 0.001 * nocap["selected_iters"])
-    lk = _load("BENCH_lockstep_r05b.json")
-    assert lk["workload"]["stage1_maxiter"] == 120
-    assert lk["workload"]["stage2_maxiter"] == 160
-    assert lk["combined_first_pass"]["waste"] < 0.15
-    # stage 3 (full-data refine, BENCH_refine_r05.json): starting from the
-    # selected converged restart, the residual test fires on trip 1 for
-    # EVERY instance — no straggler, nothing left to cap.  Cross-check:
-    # first-pass useful iters + batch*1 refine trips = the A/B's selected
-    # iters exactly (209467 + 256 = 209723).
-    rf = _load("BENCH_refine_r05.json")
-    assert rf["refine_trips"]["max"] == 1
-    assert rf["refine_trips"]["lockstep_waste"] == 0.0
-    assert (lk["combined_first_pass"]["useful_iters"]
-            + rf["workload"]["batch"] == cap["selected_iters"])
-    # the harvest transfers to the production 32x32 shape
-    # (BENCH_full32_r05.json): +30%+ recoveries/s at the same accuracy
-    # class (there it is the pass-1 redone-work cut, not stragglers —
-    # 32x32/batch-16 trips were already tight)
-    f32x = _load("BENCH_full32_r05.json")
-    p32 = {p["stage1_maxiter"]: p for p in f32x["points"]}
-    assert (p32[120]["recoveries_per_s"]
-            >= 1.25 * p32[None]["recoveries_per_s"])
-    assert p32[120]["median_nmse_db"] <= -80.0
-    assert p32[120]["min_quality"] == 1.0
-
-
 def test_vssr_r05_reference_semantics_and_finite_rows():
     """VSSR_r05.json (VERDICT r04 #2: replaces the all-NaN NMSE-target
     artifact).  The campaign runs the reference's own semantics — the
@@ -332,7 +164,7 @@ def test_vssr_r05_reference_semantics_and_finite_rows():
     d = _load("VSSR_r05.json")
     assert d["ranges_deg"] == [20.0, 30.0, 40.0, 50.0, 60.0, 70.0, 80.0]
     assert d["maee_targets_deg"] == [0.6, 0.8, 1.0]
-    from twoace_tpu.pipeline import VS_SR_GRIDS
+    from twoace.pipeline import VS_SR_GRIDS
     for r_i, sr in enumerate(d["ranges_deg"]):
         ms, gs = VS_SR_GRIDS[int(sr)]
         assert d["m_grids"][r_i] == list(ms)
@@ -370,79 +202,6 @@ def test_vssnr_r05_explained_boundary():
     # variance columns (advisor finding: vs-snr lacked std fields in r04)
     assert "admm_lowrank_v4" in d["nmse_db_std"]
     assert len(d["nmse_db_std"]["admm_lowrank_v4"]) == len(snr)
-
-
-def test_mobility_r05_h_level_tracking():
-    """MOBILITY_r05.json (VERDICT r04 #4): H-level tracking demonstrated.
-
-    On the fresh-pair stream with the 256-probe horizon (above the
-    magnitude-only identifiability bound for a rank-1 16x16 channel) the
-    reference-semantics cold tracker's H-NMSE DECLINES as the window
-    fills (deep within 4 windows), sustains a deep band, collapses at the
-    window-20 channel jump and RE-CONVERGES within a few windows — and
-    its reset branch fires.  The sector stream separately pins the reset
-    branch under the 80-probe reference horizon.  Measured r05 context:
-    the anchored warm tracker is a starved-regime tool — on identifiable
-    windows its anchor drags toward stale estimates (slow decline), so
-    the deep-tracking row is the cold re-solve, matching the reference's
-    own per-window semantics (RSS_Mobility.m:155-188)."""
-    d = _load("MOBILITY_r05.json")
-    tr = {t["tracker"]: t for t in d["trackers"]}
-    deep = tr["cold_freshpairs_window256"]
-    nm = deep["tracked_nmse_db"]
-    assert deep["reset_branch_fired"]
-    # decline while the window fills (windows 0 -> 3)
-    assert nm[0] > -2.0 and nm[3] <= -8.0, nm[:4]
-    # sustained deep band before the jump
-    assert np.median(nm[4:20]) <= -10.0, nm[4:20]
-    # jump knocks it out, then re-convergence within a few windows
-    assert nm[20] > -2.0, nm[20]
-    assert min(nm[21:26]) <= -10.0, nm[21:26]
-    # last-quarter band stays deep
-    assert deep["nmse_last_quarter_db"] <= -10.0
-    # sector stream: the reference-horizon cold tracker fires the reset
-    # branch (the r04 gap)
-    assert tr["cold_resolve_ref_semantics"]["reset_branch_fired"]
-
-
-def test_mobility_r04_both_branches_fire():
-    """MOBILITY_r04.json (VERDICT r03 #4): the adaptive loop's success
-    branch must fire on chip.  The warm anchored rank-1 tracker resets the
-    probe budget (err < 0.3 -> M = 0, RSS_Mobility.m:167-175) at multiple
-    windows AND grows it after the channel jump; its Tx-factor alignment
-    stays pinned (> 0.9) every window.  The cold reference-semantics
-    tracker on the same stream never resets -- the r03 symptom, kept as
-    the measured contrast."""
-    d = _load("MOBILITY_r04.json")
-    tr = {t["tracker"]: t for t in d["trackers"]}
-    warm = tr["warm_anchored_rank1"]
-    assert warm["reset_branch_fired"] and warm["growth_branch_fired"]
-    resets = [b for b in warm["probe_budget"][3:] if b == 0]
-    assert len(resets) >= 2, warm["probe_budget"]
-    assert min(warm["tracked_at_align"]) > 0.9, warm["tracked_at_align"]
-    assert warm["windows_per_s"] > 3
-    cold = tr["cold_resolve_ref_semantics"]
-    assert not cold["reset_branch_fired"]
-
-
-def test_breakdown32_artifact_accounting():
-    """BENCH_breakdown32_r04.json (VERDICT r03 #6): where the 16x16 ->
-    32x32 slowdown goes.  Measured: per-ITERATION cost ratio 8.37x at
-    equal selected-iteration counts (~990/instance both shapes) and 2.6%
-    lockstep waste — the slowdown is per-iteration compute, with the
-    32x32 kernel floor sustaining ~40 TFLOPs (20% of bf16 peak, ~60% of
-    the fp32-emulated ceiling) vs 16x16's ~21 TFLOPs."""
-    d = _load("BENCH_breakdown32_r04.json")
-    e = d["end_to_end"]
-    assert e["recoveries_per_s"] > 7.0
-    assert e["median_nmse_db"] <= -100.0
-    assert 900 < e["selected_iters_per_instance"] < 1200
-    k = d["kernel_floor"]
-    assert k["nt32_m4096"]["tflops"] > 30.0
-    assert 5.0 < k["per_iter_cost_ratio_32_over_16"] < 16.0
-    assert d["stages"]["first_pass_trips"]["lockstep_waste"] < 0.1
-    assert d["end_to_end_warm80"]["recoveries_per_s"] \
-        > e["recoveries_per_s"]
 
 
 def test_vssnr_artifact_bounds():

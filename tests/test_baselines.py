@@ -6,18 +6,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from twoace_tpu.config import PhaseLiftConfig, MethodFlags, ArrayConfig
-from twoace_tpu.ops.cpr_baselines import (
+from twoace.config import PhaseLiftConfig, MethodFlags, ArrayConfig
+from twoace.ops.cpr_baselines import (
     conventional_cs,
     cprl,
     lifted_omp,
     sparse_phaselift,
 )
-from twoace_tpu.ops.dispatch import admm_v2, recover_channel, recover_sparse
-from twoace_tpu.ops.gamp import embgamp, prgamp, vamp_cs
-from twoace_tpu.ops.omp import omp
-from twoace_tpu.ops.phaselift import phaselift_bm, phaselift_fista
-from twoace_tpu.ops.twostage import static_mcs, two_stage_recovery
+from twoace.ops.dispatch import admm_v2, recover_channel, recover_sparse
+from twoace.ops.gamp import embgamp, prgamp, vamp_cs
+from twoace.ops.omp import omp
+from twoace.ops.phaselift import phaselift_bm, phaselift_fista
+from twoace.ops.twostage import static_mcs, two_stage_recovery
 
 
 def _rand_c(rng, *shape):
@@ -125,7 +125,7 @@ def test_prgamp_runs_and_fits_magnitudes(key):
 
 
 def test_static_mcs_monotone():
-    from twoace_tpu.config import TwoStageConfig
+    from twoace.config import TwoStageConfig
     cfg = TwoStageConfig()
     assert static_mcs(16, 500, 3, cfg) <= static_mcs(64, 500, 3, cfg)
     assert static_mcs(64, 500, 3, cfg) <= 64
@@ -265,7 +265,7 @@ def test_recover_channel_multi_method(key):
 def test_unconventional_cs_unit_norm(key):
     """Norm-constrained ridge LS: ||x|| = 1 when achievable in lam ∈ [0,1]
     (ref My_Unconventional_CS.m:12-15)."""
-    from twoace_tpu.ops.cpr_baselines import unconventional_cs
+    from twoace.ops.cpr_baselines import unconventional_cs
 
     rng = np.random.default_rng(0)
     m, n = 40, 16
@@ -287,7 +287,7 @@ def test_recover_channel_bf_passthrough(key):
     """Recover_Channel_bf (ref: Recover_Channel_bf.m:1-45): re-runs the
     ADMM variants on fresh beamforming-time measurements, but passes
     through the earlier PhaseLift/PLOMP/PLGAMP estimates unchanged."""
-    from twoace_tpu.ops.dispatch import recover_channel_bf
+    from twoace.ops.dispatch import recover_channel_bf
 
     rng = np.random.default_rng(21)
     cfg = ArrayConfig(nt=4, nr=4)
@@ -317,7 +317,7 @@ def test_phaselift_fista_kkt_optimality():
     G = A*(A(X) - b) + lam I  is PSD (dual feasibility) and <G, X> = 0
     (complementary slackness).  Measured residuals at 4000 iters are
     ~1e-12 (float64); bounds pinned 100x above the measurement."""
-    from twoace_tpu.ops.phaselift import _adjoint, _apply_linop
+    from twoace.ops.phaselift import _adjoint, _apply_linop
 
     rng = np.random.default_rng(0)
     n, m = 8, 48

@@ -5,7 +5,7 @@ import json
 
 import numpy as np
 
-from twoace_tpu.cli import build_parser, main
+from twoace.cli import build_parser, main
 
 
 def _run(capsys, argv):
@@ -52,9 +52,9 @@ def test_cli_recover_multires_tiers(capsys, tmp_path):
     """recover --method multires must actually enable tier-aware sampling
     (regression: ADVICE r1 silent multires=False)."""
     import jax
-    import twoace_tpu as t2
-    from twoace_tpu.models import generate_channel
-    from twoace_tpu.sensing.codebooks import random_codebook, kron_probe_rows
+    import twoace as t2
+    from twoace.models import generate_channel
+    from twoace.sensing.codebooks import random_codebook, kron_probe_rows
 
     cfg = t2.ArrayConfig(nt=4, nr=4)
     key = jax.random.PRNGKey(3)
@@ -74,10 +74,10 @@ def test_cli_recover_multires_tiers(capsys, tmp_path):
 
 
 def test_import_main_module_is_safe():
-    """Importing twoace_tpu.__main__ must not parse sys.argv
+    """Importing twoace.__main__ must not parse sys.argv
     (regression: ADVICE r1 SystemExit on import)."""
     import importlib
-    import twoace_tpu.__main__ as m
+    import twoace.__main__ as m
 
     importlib.reload(m)  # would raise SystemExit(2) without the guard
 
@@ -87,7 +87,7 @@ def test_json_summary_is_strict(capsys):
     jq/JSON.parse)."""
     from types import SimpleNamespace
 
-    from twoace_tpu.cli import _emit
+    from twoace.cli import _emit
 
     _emit({"a": float("nan"), "b": np.float64("nan"),
            "c": np.array([np.nan, 1.0]), "d": [float("nan")]},
@@ -113,7 +113,7 @@ def test_cli_mobility_tiny(capsys, tmp_path):
 def test_probe_budget_grid_pins_reference_m_grid():
     """M grid = round(linspace(2, sqrt(4*Nt*Nr), 8)).^2 with MATLAB
     half-away-from-zero rounding (ref: A2only.m:110-111)."""
-    from twoace_tpu.config import probe_budget_grid
+    from twoace.config import probe_budget_grid
 
     assert probe_budget_grid(16, 16) == (4, 36, 121, 225, 361, 529, 784,
                                          1024)
@@ -125,9 +125,9 @@ def test_probe_budget_grid_pins_reference_m_grid():
 def test_cli_recover_uses_reference_m_grid(capsys, tmp_path):
     """recover without --m-grid sweeps the reference probe-budget grid."""
     import jax
-    import twoace_tpu as t2
-    from twoace_tpu.models import generate_channel
-    from twoace_tpu.sensing.codebooks import random_codebook, kron_probe_rows
+    import twoace as t2
+    from twoace.models import generate_channel
+    from twoace.sensing.codebooks import random_codebook, kron_probe_rows
 
     cfg = t2.ArrayConfig(nt=4, nr=4)
     key = jax.random.PRNGKey(5)
@@ -151,8 +151,8 @@ def test_multires_tier_thresholds_and_offsets():
     draws from tier-1 rows [0, 1984); M <= 256 from tier-2 rows
     [1984, 5952); larger M from tier-3 rows [5952, ...)."""
     import jax
-    from twoace_tpu.config import MULTIRES_SEPARATION, MULTIRES_THRESHOLDS
-    from twoace_tpu.pipeline.recovery import CampaignConfig, _pick_m_indices
+    from twoace.config import MULTIRES_SEPARATION, MULTIRES_THRESHOLDS
+    from twoace.pipeline.recovery import CampaignConfig, _pick_m_indices
 
     assert MULTIRES_THRESHOLDS == (96, 256)
     assert MULTIRES_SEPARATION == (1984, 3968, 3968)
@@ -176,7 +176,7 @@ def test_vs_sr_measurements_needed_semantics(monkeypatch):
     reported as TOTAL measurements Mt*Mr, with per-range (M, G) grids from
     the reference's table (VS_SR_par.m:76-99)."""
     import jax
-    from twoace_tpu.pipeline import simulation as sim_mod
+    from twoace.pipeline import simulation as sim_mod
 
     # MAEE curves per range, shaped like the reference's table grids:
     # range 20 -> M (2,3,4,5); range 30 -> M (4,5,6,7)

@@ -1,12 +1,12 @@
 """Pair-representation complex arithmetic must match the complex-dtype path
-bit-for-bit (up to float32 rounding) — it is the TPU production hot path."""
+bit-for-bit (up to float32 rounding) — it is the production hot path."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from twoace_tpu.ops import cplx
-from twoace_tpu.ops.prox import (
+from twoace.ops import cplx
+from twoace.ops.prox import (
     magnitude_prox,
     profile_ladder,
     spectral_profile_prox,
@@ -120,8 +120,8 @@ def test_graft_entry_contract():
 def test_warm_basis_prox_matches_cold():
     """Warm-started 1-sweep Z-prox tracks the cold 8-sweep prox across a
     scanned ADMM run (the Gram varies slowly between iterations)."""
-    from twoace_tpu.ops.cplx import Pair, admm_iteration_pair, matmul
-    from twoace_tpu.ops.prox import profile_ladder
+    from twoace.ops.cplx import Pair, admm_iteration_pair, matmul
+    from twoace.ops.prox import profile_ladder
 
     nt = nr = 8
     n, m, r = nt * nr, 256, 8
@@ -176,9 +176,9 @@ def test_warm_basis_prox_matches_cold():
 def test_transposed_iteration_matches_untransposed():
     """admm_iteration_pair_t (r-leading layout) == admm_iteration_pair with
     warm_basis=True, state-for-state, across several iterations."""
-    from twoace_tpu.ops.cplx import (Pair, admm_iteration_pair,
+    from twoace.ops.cplx import (Pair, admm_iteration_pair,
                                      admm_iteration_pair_t, matmul)
-    from twoace_tpu.ops.prox import profile_ladder
+    from twoace.ops.prox import profile_ladder
 
     nt = nr = 4
     n, m, r = nt * nr, 64, 6
@@ -228,8 +228,8 @@ def test_transposed_iteration_matches_untransposed():
 
 def test_perturbative_eig_tracks_jacobi_in_admm():
     """eig_mode='perturb' converges the ADMM like the warm Jacobi sweep."""
-    from twoace_tpu.ops.cplx import (Pair, admm_iteration_pair_t, matmul)
-    from twoace_tpu.ops.prox import profile_ladder
+    from twoace.ops.cplx import (Pair, admm_iteration_pair_t, matmul)
+    from twoace.ops.prox import profile_ladder
 
     nt = nr = 8
     n, m, r = nt * nr, 256, 8
@@ -252,7 +252,7 @@ def test_perturbative_eig_tracks_jacobi_in_admm():
               - z0.im @ a_np.imag.T.astype(np.float32),
               z0.re @ a_np.imag.T.astype(np.float32)
               + z0.im @ a_np.real.T.astype(np.float32))
-    from twoace_tpu.ops.cplx import panel_gram_basis
+    from twoace.ops.cplx import panel_gram_basis
     base = (y0, z0,
             Pair(jnp.zeros((r, m), jnp.float32), jnp.zeros((r, m), jnp.float32)),
             Pair(jnp.zeros((r, n), jnp.float32), jnp.zeros((r, n), jnp.float32)),

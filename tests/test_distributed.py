@@ -1,11 +1,11 @@
 """Multi-process jax.distributed smoke test (VERDICT round-1 item 4).
 
 Launches two real OS processes, each with 2 virtual CPU devices, joined
-through jax.distributed.initialize — the same code path a multi-host TPU
-pod slice uses (coordinator handshake over DCN, global mesh spanning
+through jax.distributed.initialize — the same code path a multi-host
+deployment uses (coordinator handshake, global mesh spanning
 non-addressable devices, cross-process collectives).  The reference's
 scale-out analog is the MATLAB parfor pool (Vs_M_par.m:145); this test
-proves the TPU-native replacement end-to-end without TPU hardware.
+proves the replacement end-to-end without accelerators.
 """
 
 import os

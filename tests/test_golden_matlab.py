@@ -118,7 +118,7 @@ def test_oracle_matches_transcript_full_admm(g):
 
 
 def test_jax_complex_prox_matches_goldens(g):
-    from twoace_tpu.ops.prox import profile_ladder, spectral_profile_prox
+    from twoace.ops.prox import profile_ladder, spectral_profile_prox
 
     for name in Z_CASES:
         nt, nr, m, n, r1 = (int(v) for v in g[f"z_{name}_shape"])
@@ -132,7 +132,7 @@ def test_jax_complex_prox_matches_goldens(g):
 
 
 def test_jax_complex_magnitude_prox_matches_goldens(g):
-    from twoace_tpu.ops.prox import magnitude_prox
+    from twoace.ops.prox import magnitude_prox
 
     mu = float(g["y_mu"])
     for by_row, key in ((True, "y_row_out"), (False, "y_elem_out")):
@@ -144,9 +144,9 @@ def test_jax_complex_magnitude_prox_matches_goldens(g):
 
 
 def test_jax_pair_prox_matches_goldens(g):
-    from twoace_tpu.ops.cplx import (Pair, magnitude_prox_cols,
+    from twoace.ops.cplx import (Pair, magnitude_prox_cols,
                                      magnitude_prox_rows)
-    from twoace_tpu.ops.pair_solver import magnitude_prox_cols_elem
+    from twoace.ops.pair_solver import magnitude_prox_cols_elem
 
     mu = jnp.float32(float(g["y_mu"]))
 
@@ -159,7 +159,7 @@ def test_jax_pair_prox_matches_goldens(g):
     got = np.asarray(y_j.re) + 1j * np.asarray(y_j.im)
     np.testing.assert_allclose(got, g["y_row_out"], atol=2e-5)
 
-    # transposed layout (r leading) — the production TPU path
+    # transposed layout (r leading) — the production path
     y_t = magnitude_prox_cols(pair(g["y_ax"].T), b32, pair(g["y_md"].T), mu)
     got_t = (np.asarray(y_t.re) + 1j * np.asarray(y_t.im)).T
     np.testing.assert_allclose(got_t, g["y_row_out"], atol=2e-5)
@@ -171,8 +171,9 @@ def test_jax_pair_prox_matches_goldens(g):
 
 
 def test_pallas_fused_prox_zero_branch_matches_goldens(g):
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.ops.pallas.kernels import fused_prox_dual_t
+    """The transposed-layout prox + M-dual update (the production Y-step,
+    plain JAX) on the goldens' zero-row branch."""
+    from twoace.ops.cplx import Pair, magnitude_prox_cols
 
     mu = jnp.float32(float(g["y_mu"]))
 
@@ -180,12 +181,12 @@ def test_pallas_fused_prox_zero_branch_matches_goldens(g):
         return Pair(jnp.asarray(x.real, jnp.float32),
                     jnp.asarray(x.imag, jnp.float32))
 
-    y_t, m_t = fused_prox_dual_t(pair(g["y_ax"].T),
-                                 jnp.asarray(g["y_b"], jnp.float32),
-                                 pair(g["y_md"].T), mu, interpret=True)
+    ax, md = pair(g["y_ax"].T), pair(g["y_md"].T)
+    y_t = magnitude_prox_cols(ax, jnp.asarray(g["y_b"], jnp.float32), md, mu)
+    m_t = Pair(md.re + mu * (ax.re - y_t.re), md.im + mu * (ax.im - y_t.im))
     got = (np.asarray(y_t.re) + 1j * np.asarray(y_t.im)).T
     np.testing.assert_allclose(got, g["y_row_out"], atol=2e-5)
-    # fused dual update: M + mu (AX - Y)
+    # dual update: M + mu (AX - Y)
     m_exp = g["y_md"] + float(g["y_mu"]) * (g["y_ax"] - g["y_row_out"])
     got_m = (np.asarray(m_t.re) + 1j * np.asarray(m_t.im)).T
     np.testing.assert_allclose(got_m, m_exp, atol=5e-5)
@@ -199,10 +200,10 @@ def test_jax_full_solver_nmse_parity_with_transcript(g):
     is both being far below any operating point (< -60 dB f64, < -35 dB the
     f32 pair path).
     """
-    from twoace_tpu.config import AdmmConfig
-    from twoace_tpu.ops.admm import solve_lowrank_multi
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.ops.pair_solver import solve_lowrank_multi_pair
+    from twoace.config import AdmmConfig
+    from twoace.ops.admm import solve_lowrank_multi
+    from twoace.ops.cplx import Pair
+    from twoace.ops.pair_solver import solve_lowrank_multi_pair
 
     a, b, x_true = g["full_a"], g["full_b"], g["full_xtrue"]
     assert float(g["full_nmse_db"]) < -60.0           # transcript converged
@@ -246,7 +247,7 @@ def test_rectangular_zprox_semantics_pinned(g):
       3. the two behaviors genuinely differ on rectangular shapes (the
          deviation is real, visible, and chosen — not an accident).
     """
-    from twoace_tpu.ops.prox import profile_ladder, spectral_profile_prox
+    from twoace.ops.prox import profile_ladder, spectral_profile_prox
 
     for name in ("rect8x4", "rect4x8"):
         nt, nr, m, n, r1 = (int(v) for v in g[f"z_{name}_shape"])

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from twoace_tpu.config import ArrayConfig, ChannelConfig, probe_budget_grid
-from twoace_tpu.models import (
+from twoace.config import ArrayConfig, ChannelConfig, probe_budget_grid
+from twoace.models import (
     angle_dictionary,
     generate_channel,
     generate_measurement,
@@ -15,7 +15,7 @@ from twoace_tpu.models import (
     unvec_channel,
     vec_channel,
 )
-from twoace_tpu.utils.units import dbm_to_amplitude, amplitude_to_dbm
+from twoace.utils.units import dbm_to_amplitude, amplitude_to_dbm
 
 
 CFG = ArrayConfig(nt=8, nr=8)

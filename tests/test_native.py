@@ -7,7 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from twoace_tpu.sensing.tcp_provider import ServerProcess, TcpProvider
+from twoace.sensing.tcp_provider import ServerProcess, TcpProvider
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no C++ toolchain")
@@ -63,7 +63,7 @@ def test_server_unknown_command_and_weak_signal():
 def test_codebook_image_roundtrip(tmp_path):
     """TBRD image: create/set/get sectors, active count, module mask
     (the wil6210_brd_mod role, codebook_library.py:21-48)."""
-    from twoace_tpu.sensing.brd import CodebookImage
+    from twoace.sensing.brd import CodebookImage
 
     p = str(tmp_path / "rx.tbrd")
     img = CodebookImage.create(p, n_ant=16, n_sectors=4)
@@ -87,7 +87,7 @@ def test_codebook_image_roundtrip(tmp_path):
 
 
 def test_codebook_image_detects_corruption(tmp_path):
-    from twoace_tpu.sensing.brd import CodebookImage
+    from twoace.sensing.brd import CodebookImage
 
     p = str(tmp_path / "bad.tbrd")
     img = CodebookImage.create(p, n_ant=8, n_sectors=2)
@@ -102,7 +102,7 @@ def test_codebook_image_detects_corruption(tmp_path):
 def test_export_codebook_set(tmp_path):
     """Generator-script output shape: per-round images + txt phase table
     (ref generate_rx_codebook_16ant_random.py:44-92)."""
-    from twoace_tpu.sensing.brd import (
+    from twoace.sensing.brd import (
         CodebookImage,
         export_codebook_set,
         read_phase_table,

@@ -6,18 +6,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from twoace_tpu.config import AdmmConfig, ArrayConfig, ChannelConfig
-from twoace_tpu.models import generate_channel
-from twoace_tpu.ops.admm import infer_admm, solve_lowrank_multi, solve_minl2
-from twoace_tpu.ops.eigh_jacobi import eigh_desc, eigh_jacobi, subspace_eigh
-from twoace_tpu.ops.prox import (
+from twoace.config import AdmmConfig, ArrayConfig, ChannelConfig
+from twoace.models import generate_channel
+from twoace.ops.admm import infer_admm, solve_lowrank_multi, solve_minl2
+from twoace.ops.eigh_jacobi import eigh_desc, eigh_jacobi, subspace_eigh
+from twoace.ops.prox import (
     magnitude_prox,
     nuclear_prox,
     profile_ladder,
     spectral_profile_prox,
 )
-from twoace_tpu.ops.spectral_init import spectral_initialize
-from twoace_tpu.utils.metrics import nmse_h_projection
+from twoace.ops.spectral_init import spectral_initialize
+from twoace.utils.metrics import nmse_h_projection
 
 
 def _rand_c(rng, *shape):
@@ -296,8 +296,8 @@ def test_ladder_m_snap_preserves_ladder_selection():
     as the true active count — with at most 3 distinct values per run."""
     import math as _math
 
-    from twoace_tpu.ops.prox import profile_ladder
-    from twoace_tpu.pipeline.mobility import _ladder_m_for_window
+    from twoace.ops.prox import profile_ladder
+    from twoace.pipeline.mobility import _ladder_m_for_window
 
     nt = nr = 4
     n = nt * nr                      # 3n = 48 sits inside the sweep range

@@ -1,14 +1,14 @@
-"""The pair-representation full A2 solver (the on-TPU path) must match the
+"""The pair-representation full A2 solver (the production path) must match the
 complex-dtype solver end-to-end — same scaffold, same recoveries."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from twoace_tpu.config import AdmmConfig
-from twoace_tpu.ops.cplx import Pair
-from twoace_tpu.ops.admm import solve_lowrank_multi
-from twoace_tpu.ops.pair_solver import (
+from twoace.config import AdmmConfig
+from twoace.ops.cplx import Pair
+from twoace.ops.admm import solve_lowrank_multi
+from twoace.ops.pair_solver import (
     infer_admm_pair,
     magnitude_prox_cols_elem,
     precompute_u_pair,
@@ -84,7 +84,7 @@ def test_spectral_initialize_pair_spans_reference_subspace():
 
 
 def test_pair_proxes_match_complex():
-    from twoace_tpu.ops.prox import magnitude_prox, project_rows_to_magnitude
+    from twoace.ops.prox import magnitude_prox, project_rows_to_magnitude
 
     rng = np.random.default_rng(3)
     m, r = 24, 5
@@ -156,7 +156,7 @@ def test_pair_solver_nuclear_variant_parity():
 def test_infer_admm_pair_jacobi_mode_matches_perturb():
     """Both in-loop eig modes drive the same recovery."""
     a, b, x_true = _problem(seed=4)
-    from twoace_tpu.ops.prox import profile_ladder
+    from twoace.ops.prox import profile_ladder
 
     m, n = a.shape
     ladder = profile_ladder(8, 8, m, n, False)
@@ -181,7 +181,7 @@ def test_infer_admm_pair_jacobi_mode_matches_perturb():
 
 def test_batched_shared_codebook_solver():
     """solve_lowrank_multi_pair_batch: many channels, one codebook."""
-    from twoace_tpu.ops.pair_solver import solve_lowrank_multi_pair_batch
+    from twoace.ops.pair_solver import solve_lowrank_multi_pair_batch
 
     nt = nr = 8
     n, m, batch = 64, 256, 2
@@ -213,12 +213,12 @@ def test_batched_shared_codebook_solver():
 def test_batched_solver_pass_caps_preserve_recovery():
     """stage1_maxiter / stage2_maxiter (config.AdmmConfig): the pass-1 and
     pass-2 iteration caps bound the vmapped-lockstep stragglers
-    (BENCH_lockstep_r05) without degrading recovery — the full-data
+    (scripts/bench_lockstep.py) without degrading recovery — the full-data
     refinement stage still runs at full maxiter and re-converges the
     selected restart.  The capped run must (a) recover to the same
     accuracy class, (b) keep the held-out quality gate green, and
     (c) consume strictly fewer inner iterations than the uncapped run."""
-    from twoace_tpu.ops.pair_solver import solve_lowrank_multi_pair_batch
+    from twoace.ops.pair_solver import solve_lowrank_multi_pair_batch
 
     nt = nr = 8
     n, m, batch = 64, 256, 2
@@ -259,7 +259,7 @@ def test_batched_solver_host_gated_retry():
     non-power-of-two padding path runs too.  Single-path channels are what
     the rank-1 fallback is FOR, so recovery must stay accurate, and the
     retry's iterations must be accounted into res.iters."""
-    from twoace_tpu.ops.pair_solver import solve_lowrank_multi_pair_batch
+    from twoace.ops.pair_solver import solve_lowrank_multi_pair_batch
 
     nt = nr = 8
     n, m, batch = 64, 256, 3
@@ -289,8 +289,8 @@ def test_batched_solver_host_gated_retry():
 
 def test_phaselift_bm_pair_matches_complex():
     """Pair-form Burer-Monteiro PhaseLift recovers like the complex one."""
-    from twoace_tpu.config import PhaseLiftConfig
-    from twoace_tpu.ops.phaselift import phaselift_bm, phaselift_bm_pair
+    from twoace.config import PhaseLiftConfig
+    from twoace.ops.phaselift import phaselift_bm, phaselift_bm_pair
 
     n, m = 16, 200
     rng = np.random.default_rng(2)
@@ -313,7 +313,7 @@ def test_phaselift_bm_pair_matches_complex():
 
 def test_matmul_precision_modes_agree_on_cpu():
     """cfg.matmul_precision selects the solver's trace-time matmul
-    precision (the TPU accuracy/throughput knob — see config.AdmmConfig);
+    precision (the accuracy/throughput knob — see config.AdmmConfig);
     on CPU f32 matmuls are exact in every mode, so both modes must
     produce identical recoveries (guards the context plumbing + jit
     cache-key separation)."""

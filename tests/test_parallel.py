@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from twoace_tpu.config import AdmmConfig, ArrayConfig, ChannelConfig
-from twoace_tpu.models import generate_channel
-from twoace_tpu.parallel import make_mesh, problem_sharding, solve_lowrank_sharded
-from twoace_tpu.utils.metrics import nmse_h_projection
+from twoace.config import AdmmConfig, ArrayConfig, ChannelConfig
+from twoace.models import generate_channel
+from twoace.parallel import make_mesh, problem_sharding, solve_lowrank_sharded
+from twoace.utils.metrics import nmse_h_projection
 
 
 def _problem(key, cfg, batch, m):
@@ -69,10 +69,10 @@ def test_sharded_matches_row_replicated():
 
 
 def test_sharded_pair_solver_recovers():
-    """Pair-form sharded solver (the complex-free TPU-pod path) recovers
+    """Pair-form sharded solver (the multi-device production path) recovers
     channels on the same (batch x rows) mesh."""
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.parallel import solve_lowrank_sharded_pair
+    from twoace.ops.cplx import Pair
+    from twoace.parallel import solve_lowrank_sharded_pair
 
     key = jax.random.PRNGKey(3)
     cfg = ArrayConfig(nt=4, nr=4)
@@ -95,8 +95,8 @@ def test_sharded_pair_solver_recovers():
 
 def test_sharded_pair_matches_complex_sharded():
     """Pair and complex sharded solvers agree on recovery quality."""
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.parallel import solve_lowrank_sharded_pair
+    from twoace.ops.cplx import Pair
+    from twoace.parallel import solve_lowrank_sharded_pair
 
     key = jax.random.PRNGKey(4)
     cfg = ArrayConfig(nt=4, nr=4)
@@ -127,8 +127,8 @@ def test_sharded_pair_matches_complex_sharded():
 
 def test_sharded_pair_nuclear_runs():
     """Nuclear prox variant of the pair sharded solver stays finite."""
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.parallel import solve_lowrank_sharded_pair
+    from twoace.ops.cplx import Pair
+    from twoace.parallel import solve_lowrank_sharded_pair
 
     key = jax.random.PRNGKey(5)
     cfg = ArrayConfig(nt=4, nr=4)
@@ -152,9 +152,9 @@ def test_sharded_multi_scaffold_matches_single_chip_quality():
     (CV restarts + quality gate + rank-1 retry + rollback, row-sharded
     inner solves) is compared against solve_lowrank_multi_pair on
     IDENTICAL instances — not rows=2 vs rows=1 self-consistency."""
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.ops.pair_solver import solve_lowrank_multi_pair
-    from twoace_tpu.parallel.sharded_pair import (
+    from twoace.ops.cplx import Pair
+    from twoace.ops.pair_solver import solve_lowrank_multi_pair
+    from twoace.parallel.sharded_pair import (
         solve_lowrank_multi_sharded_pair)
 
     key = jax.random.PRNGKey(3)

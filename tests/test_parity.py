@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from twoace_tpu.config import AdmmConfig, ArrayConfig, ChannelConfig
-from twoace_tpu.models import generate_channel
-from twoace_tpu.ops.admm import solve_lowrank_multi
-from twoace_tpu.ops.prox import magnitude_prox as jax_mag_prox
-from twoace_tpu.ops.prox import profile_ladder, spectral_profile_prox
-from twoace_tpu.utils.metrics import nmse_h_projection
+from twoace.config import AdmmConfig, ArrayConfig, ChannelConfig
+from twoace.models import generate_channel
+from twoace.ops.admm import solve_lowrank_multi
+from twoace.ops.prox import magnitude_prox as jax_mag_prox
+from twoace.ops.prox import profile_ladder, spectral_profile_prox
+from twoace.utils.metrics import nmse_h_projection
 
 import reference_numpy as ref
 
@@ -71,8 +71,8 @@ def test_inner_admm_matches_oracle_trajectory():
     x_np, _ = ref.infer_admm(a, b, xs, True, False, cfg.nt, cfg.nr,
                              maxiter=200)
 
-    from twoace_tpu.ops.admm import infer_admm as jax_infer
-    from twoace_tpu.ops.prox import profile_ladder as pl
+    from twoace.ops.admm import infer_admm as jax_infer
+    from twoace.ops.prox import profile_ladder as pl
 
     lad = pl(cfg.nt, cfg.nr, a.shape[0], n, False)
 

@@ -6,14 +6,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from twoace_tpu.config import (
+from twoace.config import (
     AdmmConfig,
     ArrayConfig,
     ChannelConfig,
     MethodFlags,
 )
-from twoace_tpu.models import generate_channel
-from twoace_tpu.pipeline import (
+from twoace.models import generate_channel
+from twoace.pipeline import (
     CampaignConfig,
     MobilityConfig,
     SimulationConfig,
@@ -23,15 +23,15 @@ from twoace_tpu.pipeline import (
     sweep_measurements,
     track,
 )
-from twoace_tpu.sensing.codebooks import random_codebook, kron_probe_rows
-from twoace_tpu.sensing.provider import (
+from twoace.sensing.codebooks import random_codebook, kron_probe_rows
+from twoace.sensing.provider import (
     RetryingProvider,
     SyntheticProvider,
     ThermalGuard,
 )
-from twoace_tpu.utils.checkpoint import CampaignStore
-from twoace_tpu.utils.metrics import nmse_h_projection
-from twoace_tpu.utils.units import dbm_to_amplitude
+from twoace.utils.checkpoint import CampaignStore
+from twoace.utils.metrics import nmse_h_projection
+from twoace.utils.units import dbm_to_amplitude
 
 
 CFG = ArrayConfig(nt=4, nr=4)
@@ -163,8 +163,8 @@ def test_h_domain_angle_readout(key):
     vec_h must project to its own support, giving ~0 angle error."""
     import jax.numpy as jnp
 
-    from twoace_tpu.models import generate_channel, sparse_formulation
-    from twoace_tpu.utils.metrics import (angle_error, angles_from_sparse,
+    from twoace.models import generate_channel, sparse_formulation
+    from twoace.utils.metrics import (angle_error, angles_from_sparse,
                                           sparse_projection_omp)
 
     cfg = ArrayConfig(nt=4, nr=4)
@@ -183,7 +183,7 @@ def test_h_domain_angle_readout(key):
 def test_simulated_mobility_budget_rule(key):
     """track_simulated: budget shrinks by floor(M/5)+1 on success, grows on
     failure (ref RSS_Mobility_simu.m:155-160); static channel locks in."""
-    from twoace_tpu.pipeline import SimulatedMobilityConfig, track_simulated
+    from twoace.pipeline import SimulatedMobilityConfig, track_simulated
 
     ch = _ground_truth(key)
     p, n_windows = 24, 6
@@ -205,7 +205,7 @@ def test_simulated_mobility_budget_rule(key):
 
 
 def test_brownian_trace_shapes(key):
-    from twoace_tpu.pipeline import SimulatedMobilityConfig, brownian_trace
+    from twoace.pipeline import SimulatedMobilityConfig, brownian_trace
 
     mob = SimulatedMobilityConfig(window_probes=10)
     cb, rss, vec_h = brownian_trace(key, CFG, mob, n_windows=4)
@@ -221,7 +221,7 @@ def test_brownian_trace_shapes(key):
 def test_trace_sweep_wireless_insite(key):
     """sweep_measurements_trace: unit-magnitude normalized trace channels
     (ref Vs_M_Wireless_Insite.m:167-172) through the standard cell."""
-    from twoace_tpu.pipeline import sweep_measurements_trace
+    from twoace.pipeline import sweep_measurements_trace
 
     rng = np.random.default_rng(0)
     h = rng.normal(size=(2, 4, 4)) + 1j * rng.normal(size=(2, 4, 4))
@@ -241,7 +241,7 @@ def test_trace_sweep_wireless_insite(key):
 def test_directional_campaign_and_aco(key):
     """Campaign 3 + ACO: the ACO-calibrated beam pair should beat a random
     2-bit beam pair on the same channel (ref main.py:183-220, 398-419)."""
-    from twoace_tpu.sensing.codebooks import kron_probe_rows as kpr
+    from twoace.sensing.codebooks import kron_probe_rows as kpr
 
     ch = _ground_truth(key)
     prov = SyntheticProvider(vec_h=ch.vec_h[0], noise_dbm_std=0.0)
@@ -290,9 +290,9 @@ def test_warm_sweep_coarse_to_fine():
     """Warm-started M-sweep: later (finer) budgets reuse earlier solutions
     and must reach strong recovery at the full budget."""
     import numpy as np
-    from twoace_tpu.config import AdmmConfig, ArrayConfig
-    from twoace_tpu.pipeline.recovery import CampaignConfig, recover_warm_sweep
-    from twoace_tpu.utils.units import amplitude_to_dbm
+    from twoace.config import AdmmConfig, ArrayConfig
+    from twoace.pipeline.recovery import CampaignConfig, recover_warm_sweep
+    from twoace.utils.units import amplitude_to_dbm
 
     cfg = ArrayConfig(nt=4, nr=4)
     n = cfg.n
@@ -330,9 +330,9 @@ def test_anchored_refine_preserves_unmeasured_directions():
     (ref probing structure: RSS_Mobility.m cb = kron(rx_cb, tx_cb))."""
     import jax.numpy as jnp
 
-    from twoace_tpu.config import AdmmConfig
-    from twoace_tpu.ops.cplx import Pair
-    from twoace_tpu.ops.pair_solver import refine_lowrank_pair
+    from twoace.config import AdmmConfig
+    from twoace.ops.cplx import Pair
+    from twoace.ops.pair_solver import refine_lowrank_pair
 
     nt = nr = 4
     n = nt * nr
@@ -372,8 +372,8 @@ def test_warm_tracking_solver_runs_and_resets(key):
     """make_warm_pair_solver end-to-end through track() on a tiny kron
     workload: runs, produces finite estimates, and its reset() clears the
     carried state."""
-    from twoace_tpu.config import AdmmConfig
-    from twoace_tpu.pipeline.mobility import (MobilityConfig,
+    from twoace.config import AdmmConfig
+    from twoace.pipeline.mobility import (MobilityConfig,
                                               make_warm_pair_solver, track)
 
     nt = nr = 4
@@ -405,6 +405,6 @@ def test_warm_tracking_solver_runs_and_resets(key):
 
 
 def t2_cfg(nt, nr):
-    from twoace_tpu.config import ArrayConfig
+    from twoace.config import ArrayConfig
 
     return ArrayConfig(nt=nt, nr=nr)

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from twoace_tpu.config import ArrayConfig, ChannelConfig
-from twoace_tpu.models import generate_channel
-from twoace_tpu.ops.prox import profile_ladder
-from twoace_tpu.utils import plotting
+from twoace.config import ArrayConfig, ChannelConfig
+from twoace.models import generate_channel
+from twoace.ops.prox import profile_ladder
+from twoace.utils import plotting
 
 pytest.importorskip("matplotlib")
 
@@ -39,7 +39,7 @@ def test_all_plots_render(tmp_path, key):
 def test_beam_width_narrows_with_aperture(tmp_path):
     """-3 dB beamwidth shrinks as the ULA grows (physics sanity)."""
     import numpy as np
-    from twoace_tpu.utils.plotting import beam_width_deg, plot_beam_width
+    from twoace.utils.plotting import beam_width_deg, plot_beam_width
 
     widths = []
     for n in (8, 16, 32):

@@ -17,7 +17,7 @@ them:
   - kron row assembly + row ORDERING (processsing_codebook_random.m:54-62
     non-permuted reshape vs processsing_codebook_multires.m:60-61
     permute([2,1,3]) reshape) reproduced by
-    :func:`twoace_tpu.sensing.codebooks.kron_probe_rows`;
+    :func:`twoace.sensing.codebooks.kron_probe_rows`;
   - the calibration-bit fold relating the "_multires_actual" matrix to the
     "_multires" (inferred) one (generate_rx_codebook_multires_16ant.py:84-115:
     actual_bit = (ideal - calib) mod 4 on tiers 1-2, identity on tier 3,
@@ -112,7 +112,7 @@ def test_kron_probe_rows_reproduces_shipped_random_cb():
     """kron_probe_rows(interleave=True) == the shipped random_probe_cb
     (round-fastest ordering: flat = round + 64*sector, the column-major
     reshape of processsing_codebook_random.m without permute)."""
-    from twoace_tpu.sensing.codebooks import kron_probe_rows
+    from twoace.sensing.codebooks import kron_probe_rows
 
     tx, rx = _rows_from_txt("random")
     cb = _load_cb("random_probe_cb_16x16.mat")
@@ -127,7 +127,7 @@ def test_kron_probe_rows_reproduces_shipped_multires_cb():
     Resolution tiers are then CONTIGUOUS row ranges — the precondition of
     the tier-aware sampling (..._multiresolution.m:111-112,137-143 and
     pipeline/recovery._pick_m_indices)."""
-    from twoace_tpu.sensing.codebooks import kron_probe_rows
+    from twoace.sensing.codebooks import kron_probe_rows
 
     tx, rx = _rows_from_txt("multires")
     cb = _load_cb("random_probe_cb_16x16_multires.mat")
@@ -144,7 +144,7 @@ def test_multires_actual_is_calibration_fold_of_inferred():
     calibration, generate_rx_codebook_multires_16ant.py:106-115)."""
     cb_inf = _load_cb("random_probe_cb_16x16_multires.mat")
     cb_act = _load_cb("random_probe_cb_16x16_multires_actual.mat")
-    from twoace_tpu.sensing.codebooks import REFERENCE_CALIBRATION_16
+    from twoace.sensing.codebooks import REFERENCE_CALIBRATION_16
 
     np.testing.assert_array_equal(REFERENCE_CALIBRATION_16,
                                   CALIB_32[ACTIVE_16])
@@ -172,7 +172,7 @@ def test_multires_codebook_calibration_semantics_match_shipped():
 
     # same fold applied through the repo generator
     import jax
-    from twoace_tpu.sensing.codebooks import (REFERENCE_CALIBRATION_16,
+    from twoace.sensing.codebooks import (REFERENCE_CALIBRATION_16,
                                               multires_codebook)
 
     inf, act = multires_codebook(jax.random.PRNGKey(0), 16,
@@ -207,7 +207,7 @@ def test_hardware_phaseoffset_reproduced_from_calib_sweep():
     hardware_phaseoffset.mat from steering_vector_calib.mat to machine
     precision (ref: AntennaPhaseShifts.m:3-8,
     IdealSteeringVectorPerPanel.m:9-41)."""
-    from twoace_tpu.sensing.grouping import per_panel_phase_offsets
+    from twoace.sensing.grouping import per_panel_phase_offsets
 
     d = scipy_io.loadmat(os.path.join(
         REF, "directional_codebook_generator/steering_vector_calib.mat"))
@@ -234,9 +234,9 @@ def test_recovery_through_shipped_random_codebook():
     import jax
     import jax.numpy as jnp
 
-    from twoace_tpu.config import AdmmConfig, ArrayConfig, ChannelConfig
-    from twoace_tpu.models.channel import generate_channel
-    from twoace_tpu.ops.admm import solve_lowrank_multi
+    from twoace.config import AdmmConfig, ArrayConfig, ChannelConfig
+    from twoace.models.channel import generate_channel
+    from twoace.ops.admm import solve_lowrank_multi
 
     cb = _load_cb("random_probe_cb_16x16.mat")
     rng = np.random.default_rng(2023)

@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from twoace_tpu.config import ArrayConfig
-from twoace_tpu.models import angle_dictionary
-from twoace_tpu.sensing import (
+from twoace.config import ArrayConfig
+from twoace.models import angle_dictionary
+from twoace.sensing import (
     aco_sweep_codebook,
     bayes_a_opt_select,
     conj_phase_bits,
@@ -159,7 +159,7 @@ def test_svd_beamformer_gain(key):
 def test_bayes_multiuser_prior(key):
     """Multi-user A-opt: stacked priors select a valid, mostly-distinct design
     and beat the first-M rows on the summed criterion."""
-    from twoace_tpu.sensing import directional_beam_bayes, noise_prior_from_vech
+    from twoace.sensing import directional_beam_bayes, noise_prior_from_vech
 
     rng = np.random.default_rng(1)
     n, c, m, u = 16, 128, 12, 3
@@ -183,7 +183,7 @@ def test_bayes_multiuser_prior(key):
 def test_directional_beam_bayes_modes(key):
     """Directional_Beam_Bayes: both candidate options produce unit-row fw on
     the first user slot (ref Directional_Beam_Bayes.m:55-56)."""
-    from twoace_tpu.sensing import directional_beam_bayes
+    from twoace.sensing import directional_beam_bayes
 
     cfg = ArrayConfig(nt=4, nr=4)
     rng = np.random.default_rng(2)
@@ -200,7 +200,7 @@ def test_directional_beam_bayes_modes(key):
 
 def test_directional_beam_bayes_v2(key):
     """v2: sub-array steering candidates, quantized output beams."""
-    from twoace_tpu.sensing import directional_beam_bayes_v2
+    from twoace.sensing import directional_beam_bayes_v2
 
     cfg = ArrayConfig(nt=8, nr=1)
     ad = angle_dictionary(cfg, 180.0)
@@ -220,11 +220,11 @@ def test_directional_random_and_region_beams(key):
     """Random-gain directional/region beam families: quantized unit-modulus
     weights concentrating energy in the FoV
     (ref Directional_Random_Beam.m, Region_Random_Beam.m)."""
-    from twoace_tpu.sensing.codebooks import (
+    from twoace.sensing.codebooks import (
         directional_random_beams,
         region_random_beams,
     )
-    from twoace_tpu.models.steering import steering_vector
+    from twoace.models.steering import steering_vector
 
     cfg = ArrayConfig(nt=8, nr=8)
     for maker in (directional_random_beams, region_random_beams):
@@ -243,7 +243,7 @@ def test_directional_random_and_region_beams(key):
 
 
 def test_sweep_codebook_2d(key):
-    from twoace_tpu.sensing.codebooks import sweep_codebook_2d
+    from twoace.sensing.codebooks import sweep_codebook_2d
 
     cfg = ArrayConfig(nt=16, nr=16)
     cb = sweep_codebook_2d(cfg, 6, 6)
@@ -257,7 +257,7 @@ def test_directional_beams_rank_eliminated(key):
     """Rank_Eliminated option (ref Directional_Beam.m:56-57,84-88,169-178):
     output keeps Mt columns but only Mt - RE are independent; the extra RE
     columns are pairwise sums of existing ones, so rank drops by RE."""
-    from twoace_tpu.sensing.codebooks import directional_beams_spatial
+    from twoace.sensing.codebooks import directional_beams_spatial
 
     cfg = ArrayConfig(nt=8, nr=8)
     f0, w0 = directional_beams_spatial(8, 8, cfg, 90.0)

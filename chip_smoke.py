@@ -18,10 +18,11 @@ at the full widths the repo supports, and checks what comes out:
               NumPy reference (tests/reference_numpy.py)
   testbed     ``TestbedRunner`` + ``SyntheticProvider`` at the reference
               campaign size (64 rounds x 62 sectors, 16x16), then
-              ``estimate("random", "a2only")`` at the top of the reference
-              M grid (m=1024); the same campaign through the CLI's
-              ``testbed`` subcommand (``twoace.cli.main``); and the same
-              recovery from the same data on the CPU, in this process
+              ``estimate("random", "a2only")`` over the reference M grid
+              (4 ... 1024); the same campaign through the CLI's
+              ``testbed`` subcommand (``twoace.cli.main``); and the top
+              budget's recovery from the same data on this device and on
+              the CPU, in this process
 
 Every check states its precision and tolerance.  Any failed check or phase
 exits non-zero; on success the last line of standard output is
@@ -264,10 +265,10 @@ def trajectory_deviation(nt: int, nr: int, m: int, r: int, iters: int,
 
 
 def testbed_campaign(nt: int, nr: int, rounds: int, sectors: int,
-                     m_grid, seed: int = 0):
-    """Synthetic testbed campaign + ``estimate("random", "a2only")`` at the
-    probe budgets ``m_grid`` on the default device.  Returns ``(numbers,
-    runner, channel)``; the numbers carry the last budget's NMSE."""
+                     seed: int = 0):
+    """Synthetic testbed campaign + ``estimate("random", "a2only")`` over
+    the reference M grid on the default device.  Returns ``(numbers,
+    runner, channel)``; the numbers carry the top budget's NMSE."""
     import jax
     import twoace as t2
     from twoace.models import generate_channel
@@ -285,8 +286,7 @@ def testbed_campaign(nt: int, nr: int, rounds: int, sectors: int,
     t0 = time.perf_counter()
     runner.run_random_campaign()
     out = runner.estimate("random", "a2only",
-                          cc=CampaignConfig(array=cfg, n_paths=2),
-                          m_grid=m_grid)
+                          cc=CampaignConfig(array=cfg, n_paths=2))
     seconds = time.perf_counter() - t0
     h = out.h_amp[-1, 0] * np.exp(1j * out.h_angle[-1, 0])
     nmse = _h_nmse(h, ch)
@@ -304,10 +304,11 @@ def _h_nmse(h, ch) -> float:
                                    ch.vec_h * 3e-4)[0])
 
 
-def testbed_on_device(runner, ch, m: int, device) -> float:
+def testbed_on_device(runner, ch, m: int, device=None) -> float:
     """The campaign's A2 recovery at the single probe budget ``m`` on
-    ``device``, from the campaign's own measurements (the computation of
-    ``estimate(..., m_grid=(m,))``); returns its NMSE in dB."""
+    ``device`` (None: the default device, where it reuses the campaign
+    estimate's compiled solver), from the campaign's own measurements
+    through ``recover_campaign``; returns its NMSE in dB."""
     import jax
     import jax.numpy as jnp
     from twoace.config import MethodFlags
@@ -316,7 +317,9 @@ def testbed_on_device(runner, ch, m: int, device) -> float:
 
     data = runner.results["random"]
     cfg = runner.cfg.array
-    with jax.default_device(device):
+    place = (contextlib.nullcontext() if device is None
+             else jax.default_device(device))
+    with place:
         out = recover_campaign(jnp.asarray(data["rows"]),
                                jnp.asarray(data["rss_dbm"]),
                                MethodFlags(admm_lowrank_v4=True),
@@ -417,10 +420,6 @@ class Sizes(NamedTuple):
     batch_ura: int = 8
     rounds: int = 64      #: testbed campaign (pipeline/testbed.py defaults)
     sectors: int = 62
-    #: testbed probe budget: the top of the reference M grid.  Every
-    #: budget is its own solver shape and compile (~90 s each on the card),
-    #: so the whole 8-point grid does not fit the run's time limit.
-    testbed_m: int = 1024
 
 
 def main_phases(report: Report, sz: Sizes = Sizes()) -> None:
@@ -463,19 +462,19 @@ def main_phases(report: Report, sz: Sizes = Sizes()) -> None:
                 reference="float64 numpy", tolerance="printed only")
 
     jax.clear_caches()
-    grid = (sz.testbed_m,)
-    tb, runner, ch = testbed_campaign(nt, nt, sz.rounds, sz.sectors, grid)
+    tb, runner, ch = testbed_campaign(nt, nt, sz.rounds, sz.sectors)
     report.line("testbed", **tb, tolerance=f"nmse<{TESTBED_NMSE_BOUND}")
     check(tb["nmse"] < TESTBED_NMSE_BOUND,
           f"testbed NMSE {tb['nmse']:.4f} >= {TESTBED_NMSE_BOUND}")
 
-    # the same campaign through the CLI (same solver shape: no compile)
+    # the same campaign through the CLI (same solver shapes: no compile),
+    # on the platform this process runs on ("gpu" on the card)
+    platform = jax.default_backend()
     summary = cli_testbed(["testbed", "--nt", str(nt), "--nr", str(nt),
                            "--rounds", str(sz.rounds),
                            "--sectors", str(sz.sectors),
                            "--paths", "2", "--noise-dbm", "0",
-                           "--m-grid", str(sz.testbed_m),
-                           "--platform", "gpu"])
+                           "--platform", platform])
     cli_db = summary["nmse_db_final"]
     report.line("cli-testbed", nmse_db_final=cli_db,
                 tolerance=f"nmse<{TESTBED_NMSE_BOUND},"
@@ -485,12 +484,14 @@ def main_phases(report: Report, sz: Sizes = Sizes()) -> None:
     check(abs(cli_db - tb["nmse_db"]) <= TESTBED_CLI_DB,
           f"CLI testbed {cli_db} dB != library {tb['nmse_db']} dB")
 
-    # (c) the same recovery from the same campaign data on the CPU
+    # (c) the top budget's recovery from the same campaign data, on this
+    # device (the estimate's compiled solver) and on the CPU
+    m_top = tb["m_grid"][-1]
+    here = testbed_on_device(runner, ch, m_top)
     jax.clear_caches()
-    on_cpu = testbed_on_device(runner, ch, sz.testbed_m,
-                               jax.devices("cpu")[0])
-    diff = abs(tb["nmse_db"] - on_cpu)
-    report.line("testbed-vs-cpu", m=sz.testbed_m, nmse_db=tb["nmse_db"],
+    on_cpu = testbed_on_device(runner, ch, m_top, jax.devices("cpu")[0])
+    diff = abs(here - on_cpu)
+    report.line("testbed-vs-cpu", m=m_top, nmse_db=here,
                 cpu_nmse_db=on_cpu, diff_db=diff,
                 tolerance=f"|gpu-cpu|<={TESTBED_PARITY_DB}dB")
     check(diff <= TESTBED_PARITY_DB,

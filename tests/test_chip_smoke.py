@@ -212,24 +212,33 @@ def test_trajectory_deviation_tiny(nt, m, r):
 
 
 def test_testbed_campaign_and_cpu_parity():
-    """The testbed phase on a tiny campaign: the estimate meets the CPU
-    test's bound, and the same recovery on the explicit CPU device agrees
-    inside the stated parity bound."""
-    tb, runner, ch = cs.testbed_campaign(4, 4, 8, 8, (64,))
-    assert tb["probes"] == 64 and tb["m_grid"] == [64]
+    """The testbed phase on a tiny campaign: the estimate covers the
+    reference M grid and meets the CPU test's bound, and the top budget's
+    recovery on the default and on the explicit CPU device agrees inside
+    the stated parity bound."""
+    from twoace.config import probe_budget_grid
+
+    tb, runner, ch = cs.testbed_campaign(4, 4, 8, 8)
+    assert tb["probes"] == 64
+    assert tb["m_grid"] == list(probe_budget_grid(4, 4))
     assert tb["nmse"] < cs.TESTBED_NMSE_BOUND
-    on_cpu = cs.testbed_on_device(runner, ch, 64, jax.devices("cpu")[0])
-    assert abs(tb["nmse_db"] - on_cpu) <= cs.TESTBED_PARITY_DB
+    here = cs.testbed_on_device(runner, ch, tb["m_grid"][-1])
+    on_cpu = cs.testbed_on_device(runner, ch, tb["m_grid"][-1],
+                                  jax.devices("cpu")[0])
+    assert abs(here - on_cpu) <= cs.TESTBED_PARITY_DB
 
 
 def test_cli_testbed_in_process():
+    """The CLI's testbed subcommand in this process, at the campaign
+    defaults the smoke run uses: it sweeps the reference M grid."""
+    from twoace.config import probe_budget_grid
+
     summary = cs.cli_testbed(["testbed", "--nt", "4", "--nr", "4",
                               "--rounds", "8", "--sectors", "8",
                               "--paths", "2", "--noise-dbm", "0",
-                              "--maxiter", "100", "--restarts", "1",
-                              "--m-grid", "36", "64", "--platform", "cpu"])
+                              "--platform", "cpu"])
     assert summary["cmd"] == "testbed"
-    assert summary["m_grid"] == [36, 64]
+    assert summary["m_grid"] == list(probe_budget_grid(4, 4))
     assert np.isfinite(summary["nmse_db_final"])
 
 
@@ -263,8 +272,7 @@ def test_main_phases_tiny(capsys):
     tiny width on the CPU (the card runs the same code at Sizes())."""
     rep = cs.Report(card="cpu")
     cs.main_phases(rep, cs.Sizes(nt=4, m=64, batch=4, nt_ura=4, m_ura=96,
-                                 batch_ura=2, rounds=8, sectors=8,
-                                 testbed_m=64))
+                                 batch_ura=2, rounds=8, sectors=8))
     assert list(rep.results) == [
         "batch-cold", "batch-warm80", "full-ura", "single",
         "trajectory-float32", "trajectory-default", "testbed",

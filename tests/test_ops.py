@@ -38,6 +38,26 @@ def test_eigh_jacobi_matches_numpy():
     np.testing.assert_allclose(recon, a, atol=1e-10)
 
 
+@pytest.mark.parametrize("n, dtype", [(2, np.complex128), (3, np.complex128),
+                                      (5, np.float64), (8, np.float64)])
+def test_eigh_jacobi_scanned_schedule_sizes(n, dtype):
+    """The rotation rounds are scanned as one (rounds, pairs, 2) schedule:
+    odd sizes (one bye per round) and the smallest sizes must still
+    decompose exactly, real and complex alike."""
+    rng = np.random.default_rng(n)
+    a = _rand_c(rng, 3, n, n)
+    if dtype == np.float64:
+        a = a.real
+    a = (a + a.conj().swapaxes(-1, -2)) / 2
+    w, v = eigh_jacobi(jnp.asarray(a))
+    assert np.asarray(w).dtype == np.float64
+    np.testing.assert_allclose(np.asarray(w),
+                               np.linalg.eigvalsh(a)[..., ::-1], atol=1e-10)
+    recon = np.asarray(v) @ (np.asarray(w)[..., None]
+                             * np.asarray(v).conj().swapaxes(-1, -2))
+    np.testing.assert_allclose(recon, a, atol=1e-10)
+
+
 def test_subspace_eigh_topk():
     rng = np.random.default_rng(4)
     b = _rand_c(rng, 300, 25)

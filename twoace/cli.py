@@ -239,7 +239,7 @@ def cmd_testbed(args) -> None:
                         admm=t2.AdmmConfig(maxiter=args.maxiter,
                                            n_restarts=args.restarts))
     method = {"multires": "multiresolution"}.get(args.method, args.method)
-    out = runner.estimate("random", method, cc=cc, m_grid=args.m_grid)
+    out = runner.estimate("random", method, cc=cc)
     h = out.h_amp[-1, 0] * np.exp(1j * out.h_angle[-1, 0])
     nmse = float(nmse_h_projection(jnp.asarray(h)[None],
                                    ch.vec_h * 3e-4)[0])
@@ -329,9 +329,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rounds", type=int, default=8)
     p.add_argument("--sectors", type=int, default=8)
     p.add_argument("--noise-dbm", type=float, default=0.3)
-    p.add_argument("--m-grid", type=int, nargs="+", default=None,
-                   help="probe budgets to estimate at (default: the "
-                        "reference grid, A2only.m:106-118)")
     p.set_defaults(fn=cmd_testbed)
 
     p = sub.add_parser("recover", help=cmd_recover.__doc__)

@@ -136,8 +136,12 @@ class AdmmConfig:
     #: so the residual convergence tests fire and the iterates reach the
     #: float32 floor.  "default" lets XLA pick the backend default, which
     #: on an H100 is a TF32 tensor-core product (10-bit mantissa, 495
-    #: TFLOP/s peak); how deep a solve then converges is measured by
-    #: ``chip_smoke.py`` (see PERF.md).  On the CPU both are exact f32.
+    #: TFLOP/s peak).  ``chip_smoke.py`` measures both on the card: on one
+    #: H100 80GB HBM3 at 700 W, 50 inner-ADMM iterations at 16x16 left x
+    #: 4.9e-5 (relative) off the float64 reference under "float32" and
+    #: 1.6e-2 under "default"; the 16x16 batch reached a median NMSE of
+    #: -112.0 dB cold and -110.0 dB with an 80-iteration TF32 warm phase.
+    #: On the CPU both are exact f32.
     #: Which one each workload should use is ROADMAP A2.
     matmul_precision: str = "float32"
     #: Mixed-precision warm phase: run the FIRST ``warm_iters`` iterations

@@ -91,20 +91,22 @@ def eigh_jacobi(a, sweeps: int = 8, eps: float = 1e-30):
         w = jnp.real(a[..., 0, 0])[..., None]
         v = jnp.ones(a.shape, a.dtype)
         return w, v
-    rounds = _round_robin_pairs(n)
+    # (n-1 rounds, pairs per round, 2): every round has the same number of
+    # disjoint pairs, so the rounds are scanned, not unrolled; unrolled,
+    # each call puts n-1 copies of the rotation into the solver graph, and
+    # those copies dominate the solvers' compile time
+    schedule = jnp.asarray(np.stack(_round_robin_pairs(n)))
 
     v = jnp.broadcast_to(jnp.eye(n, dtype=a.dtype), a.shape)
 
-    def sweep(carry, _):
+    def rotate(carry, pairs):
         a, v = carry
-        for pairs in rounds:
-            p_idx = jnp.asarray(pairs[:, 0])
-            q_idx = jnp.asarray(pairs[:, 1])
-            g = _rotation_matrix(a, p_idx, q_idx, eps)
-            gh = jnp.conj(jnp.swapaxes(g, -1, -2))
-            a = gh @ a @ g
-            v = v @ g
-        return (a, v), None
+        g = _rotation_matrix(a, pairs[:, 0], pairs[:, 1], eps)
+        gh = jnp.conj(jnp.swapaxes(g, -1, -2))
+        return (gh @ a @ g, v @ g), None
+
+    def sweep(carry, _):
+        return jax.lax.scan(rotate, carry, schedule)[0], None
 
     (a, v), _ = jax.lax.scan(sweep, (a, v), None, length=sweeps)
     w = jnp.real(jnp.diagonal(a, axis1=-2, axis2=-1))

@@ -476,18 +476,27 @@ def _solve_multi_one_pair(a_loc: Pair, b_loc, key, nt: int, nr: int,
             rank_one = jnp.asarray(False)
         return x, q, rank_one
 
-    best = None
-    for i in range(n_restarts):
+    def restart_inputs(i):
         # same per-restart PRNG derivation as the unsharded pair solver
         # (_solve_lowrank_core): fold_in(key, i) -> split; [0] drives the
         # train/test permutation (masks replace the gathered index
         # vectors), [1] seeds the spectral initialization
-        k_i = jax.random.fold_in(key, i)
-        k_split, k_init = jax.random.split(k_i)
+        k_split, k_init = jax.random.split(jax.random.fold_in(key, i))
         perm = jax.random.permutation(k_split, m_global)
         train_mask = jnp.zeros((m_global,), jnp.float32).at[
             perm[:lm_tr]].set(1.0)
-        x, q, rank_one = one_restart(k_init, train_mask)
+        return k_init, train_mask
+
+    # the restarts run as one vmapped batch, as in the single-device
+    # solver (one copy of the restart graph, not n_restarts); the fold
+    # below keeps the sequential selection: the first restart with the
+    # strictly highest quality wins
+    k_inits, masks = zip(*(restart_inputs(i) for i in range(n_restarts)))
+    xs_r, qs_r, r1_r = jax.vmap(one_restart)(jnp.stack(k_inits),
+                                             jnp.stack(masks))
+    best = None
+    for i in range(n_restarts):
+        x, q, rank_one = Pair(xs_r.re[i], xs_r.im[i]), qs_r[i], r1_r[i]
         if best is None:
             best = (x, q, rank_one)
         else:

@@ -135,53 +135,40 @@ def recover_campaign(cb_rows, rss_dbm, methods: MethodFlags,
 
 
 def recover_a2only(cb_rows, rss_dbm, seed_id: int = 1,
-                   cc: CampaignConfig = CampaignConfig(),
-                   m_grid: Optional[Tuple[int, ...]] = None
-                   ) -> RecoveryOutput:
-    """ADMMLowRankV4 only (ref: channel_recovery_ADMM_v2_simulation_A2only.m).
-    ``m_grid`` (every entry point): probe budgets, default the reference's
-    grid (see :func:`recover_campaign`)."""
+                   cc: CampaignConfig = CampaignConfig()) -> RecoveryOutput:
+    """ADMMLowRankV4 only (ref: channel_recovery_ADMM_v2_simulation_A2only.m)."""
     return recover_campaign(cb_rows, rss_dbm,
-                            MethodFlags(admm_lowrank_v4=True), cc, seed_id,
-                            m_grid=m_grid)
+                            MethodFlags(admm_lowrank_v4=True), cc, seed_id)
 
 
 def recover_a2nuclear(cb_rows, rss_dbm, seed_id: int = 1,
-                      cc: CampaignConfig = CampaignConfig(),
-                      m_grid: Optional[Tuple[int, ...]] = None
-                      ) -> RecoveryOutput:
+                      cc: CampaignConfig = CampaignConfig()) -> RecoveryOutput:
     """Nuclear-norm variant (ref: ..._A2nuclear.m; seeds [1024,2048,...] in
     the reference collapse to the same table here)."""
     return recover_campaign(cb_rows, rss_dbm,
                             MethodFlags(admm_lowrank_v4=True), cc, seed_id,
-                            m_grid=m_grid, nuclear=True)
+                            nuclear=True)
 
 
 def recover_multiresolution(cb_rows, rss_dbm, seed_id: int = 1,
-                            cc: Optional[CampaignConfig] = None,
-                            m_grid: Optional[Tuple[int, ...]] = None
+                            cc: Optional[CampaignConfig] = None
                             ) -> RecoveryOutput:
     """Tier-aware multires sampling (ref: ..._multiresolution.m:111-143)."""
     if cc is None:
         cc = CampaignConfig(multires=True)
     return recover_campaign(cb_rows, rss_dbm,
-                            MethodFlags(admm_lowrank_v4=True), cc, seed_id,
-                            m_grid=m_grid)
+                            MethodFlags(admm_lowrank_v4=True), cc, seed_id)
 
 
 def recover_phaselift(cb_rows, rss_dbm, seed_id: int = 1,
-                      cc: CampaignConfig = CampaignConfig(),
-                      m_grid: Optional[Tuple[int, ...]] = None
-                      ) -> RecoveryOutput:
+                      cc: CampaignConfig = CampaignConfig()) -> RecoveryOutput:
     """PhaseLift baseline entry (ref: ..._phaselift.m)."""
     return recover_campaign(cb_rows, rss_dbm, MethodFlags(
-        admm_lowrank_v4=False, phaselift=True), cc, seed_id, m_grid=m_grid)
+        admm_lowrank_v4=False, phaselift=True), cc, seed_id)
 
 
 def recover_directional(cb_rows, rss_dbm, seed_id: int = 1,
-                        cc: Optional[CampaignConfig] = None,
-                        m_grid: Optional[Tuple[int, ...]] = None
-                        ) -> RecoveryOutput:
+                        cc: Optional[CampaignConfig] = None) -> RecoveryOutput:
     """PLOMP/PLGAMP on a directional codebook (ref: ..._directional.m —
     d = 2.9 mm, 180 deg search area)."""
     if cc is None:
@@ -189,8 +176,7 @@ def recover_directional(cb_rows, rss_dbm, seed_id: int = 1,
             array=ArrayConfig(spacing=2.9e-3),
             searching_area_deg=180.0)
     return recover_campaign(cb_rows, rss_dbm, MethodFlags(
-        admm_lowrank_v4=False, plomp=True, plgamp=True), cc, seed_id,
-        m_grid=m_grid)
+        admm_lowrank_v4=False, plomp=True, plgamp=True), cc, seed_id)
 
 
 def recover_warm_sweep(cb_rows, rss_dbm, seed_id: int = 1,

@@ -213,11 +213,9 @@ class TestbedRunner:
     # ------------------------------------------------------------ estimation
 
     def estimate(self, campaign: str = "random", method: str = "a2only",
-                 seed_id: int = 1, cc: Optional[CampaignConfig] = None,
-                 m_grid: Optional[Sequence[int]] = None):
+                 seed_id: int = 1, cc: Optional[CampaignConfig] = None):
         """Recover the channel from a measured campaign over the M grid
-        (ref: main.py:426-440); ``m_grid`` overrides the reference grid
-        (each budget is its own solver shape, so its own compile)."""
+        (ref: main.py:426-440)."""
         data = self.results[campaign]
         recover = {"a2only": recover_a2only,
                    "a2nuclear": recover_a2nuclear,
@@ -225,8 +223,6 @@ class TestbedRunner:
                    "phaselift": recover_phaselift,
                    "directional": recover_directional}[method]
         kwargs = {"cc": cc} if cc is not None else {}
-        if m_grid is not None:
-            kwargs["m_grid"] = tuple(m_grid)
         out = recover(jnp.asarray(data["rows"]), jnp.asarray(data["rss_dbm"]),
                       seed_id=seed_id, **kwargs)
         if self.store:
